@@ -1,10 +1,10 @@
-"""dr3_tpu — a TPU-native SLAM / SfM / panorama framework.
+"""dr3_tpu — a JAX SLAM / SfM / panorama framework for accelerators.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of kvmanohar22/3DR
 (reference mounted at /root/reference): 2D image transforms + spherical /
 cylindrical warping, pairwise alignment and stitching, multi-image panoramas,
 two-view epipolar geometry, monocular visual odometry / SLAM on KITTI, and
-bundle adjustment — rebuilt TPU-first:
+bundle adjustment — rebuilt as batched accelerator programs:
 
 * world state is struct-of-arrays with static shapes + masks (no pointer webs),
 * every hot op is a batched, jit-compiled kernel (vmapped RANSAC, batched
@@ -31,11 +31,12 @@ __version__ = "0.1.0"
 
 import jax as _jax
 
-# On TPU, f32 matmuls default to bf16 inputs — fatal for geometry (8-point
-# SVD systems, triangulation, normal equations lose ~8 mantissa bits;
-# measured: epipolar residuals off by ~1px, two-view bootstrap fails).
-# Default the whole framework to full-precision matmuls; bandwidth-bound
-# kernels that tolerate bf16 opt back in with an explicit precision=.
+# On the GPU, XLA may run f32 matmuls in TF32 (a 10-bit mantissa) —
+# fatal for geometry: 8-point systems, triangulation and BA normal
+# equations lose about 13 bits, enough to move epipolar residuals by ~1 px
+# and fail the two-view bootstrap. Default the whole framework to full
+# f32 matmuls; kernels that tolerate lower precision opt in with an
+# explicit precision=.
 _jax.config.update("jax_default_matmul_precision", "highest")
 
 from dr3_tpu.utils.config import Config  # noqa: F401

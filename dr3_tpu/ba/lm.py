@@ -5,7 +5,7 @@ The reference ships Ceres "exercise" programs — Powell's function
 (tests/ceres/curve_fitting.cc) and its Huber-robustified variant
 (tests/ceres/robust_curve_fitting.cc) — as the general nonlinear
 least-squares capability sitting beside the bundle adjuster. This module
-is the TPU-native equivalent: a single jitted LM solver for ANY residual
+is the JAX equivalent: a single jitted LM solver for ANY residual
 function, with Jacobians from ``jax.jacfwd`` (the analogue of Ceres
 autodiff cost functors, include/optimizer.hpp:82-111).
 

@@ -20,7 +20,7 @@ This core assembles everything **per observation** and offers two solves:
 * ``zexplicit`` — the same exact DENSE_SCHUR math through a square-root
   factorization: with Hpp^-1 = L L^T per point, the correction is Z^T Z for
   Z [3P, CK] built by one collision-free scatter of per-observation
-  L^T AtB^T blocks, so the whole correction is ONE MXU matmul (the C-dim
+  L^T AtB^T blocks, so the whole correction is ONE matmul (the C-dim
   generalization of ba/snavely.py's BAL fast path). Fastest exact path at
   window scale; memory O(P*K*C).
 * ``pcg`` — matrix-free preconditioned conjugate gradients on S with the
@@ -96,9 +96,8 @@ def sorted_segment_sum(terms, seg_ids, num_segments: int, *,
                        starts=None, ends=None):
     """``segment_sum`` for terms already SORTED by segment id.
 
-    TPU scatter-adds are update-count-bound (~30 ms per 480k updates,
-    measured round 4 — the reason BAL-scale BA sat at 2.1 LM iters/s);
-    a prefix scan + boundary difference is pure bandwidth. Accuracy: the
+    A prefix scan + boundary difference replaces the scatter-add with
+    pure bandwidth (no colliding updates). Accuracy: the
     prefix runs in two-float compensated arithmetic (TwoSum pairs, ~48
     effective mantissa bits) and the boundary difference is taken in pair
     arithmetic, so each segment sum is accurate to ~f32 eps of its own
@@ -122,7 +121,7 @@ def sorted_segment_sum(terms, seg_ids, num_segments: int, *,
 
 
 def cam_onehot_matrix(obs_cam, n_cams: int, dtype=jnp.float32):
-    """[O, K] exact 0/1 camera-membership matrix for MXU reductions."""
+    """[O, K] exact 0/1 camera-membership matrix for matmul reductions."""
     oc = jnp.clip(obs_cam, 0, n_cams - 1)
     return (oc[:, None]
             == jnp.arange(n_cams, dtype=oc.dtype)[None, :]).astype(dtype)
@@ -138,13 +137,13 @@ def assemble_blocks(r, Jc, Jp, obs_cam, obs_pt, active, n_cams: int,
     :func:`dr3_tpu.ba.problem.linearize`.
 
     ``cam_onehot`` (optional, from :func:`cam_onehot_matrix`): routes the
-    camera-keyed reductions through MXU matmuls instead of segment_sum —
-    TPU scatter-adds are update-count-bound (~30 ms per 480k updates at
-    BAL scale, measured round 4), an exact-0/1 matmul is ~5 ms. Callers
-    with an LM loop should build E once and reuse it every iteration.
+    camera-keyed reductions through exact-0/1 matmuls instead of
+    segment_sum scatter-adds (K is small, so every update of a
+    segment_sum collides with many others). Callers with an LM loop
+    should build E once and reuse it every iteration.
     ``point_sorted``: the observation table is sorted by point id — the
     point-keyed reductions then run as compensated prefix scans
-    (:func:`sorted_segment_sum`) instead of TPU scatter-adds. A [O, P]
+    (:func:`sorted_segment_sum`) instead of scatter-adds. A [O, P]
     one-hot is not representable at 60k points, so this is the point-side
     analogue of the camera one-hot trick."""
     oc = jnp.clip(obs_cam, 0, n_cams - 1)
@@ -249,7 +248,7 @@ def _explicit_s_corr(WHinv_pad, AtB_pad, cam_pad, pt_table, n_cams: int):
 
 def _explicit_s_corr_sqrt(Hpp_inv, AtB, obs_cam, obs_pt,
                           n_cams: int, n_points: int):
-    """W Hpp^-1 W^T as Z^T Z — ONE collision-free scatter + ONE MXU matmul.
+    """W Hpp^-1 W^T as Z^T Z — ONE collision-free scatter + ONE matmul.
 
     The square-root factorization of ba/snavely.py's BAL fast path
     (`_solve_explicit_direct`), generalized to C-dim camera blocks: with
@@ -268,6 +267,7 @@ def _explicit_s_corr_sqrt(Hpp_inv, AtB, obs_cam, obs_pt,
     path off the mapping-phase critical path.
     """
     O, C, _ = AtB.shape
+    check_flat_scatter_size(3 * n_points * C * n_cams)
     Lo = chol3(Hpp_inv)[obs_pt]                          # [O, 3, 3] lower
     zupd = jnp.einsum("ojr,ocj->orc", Lo, AtB)           # [O, 3, C]
     rows = 3 * obs_pt[:, None] + jnp.arange(3, dtype=obs_pt.dtype)[None, :]
@@ -279,6 +279,16 @@ def _explicit_s_corr_sqrt(Hpp_inv, AtB, obs_cam, obs_pt,
     S = jax.lax.dot_general(Z, Z, (((0,), (0,)), ((), ())),
                             preferred_element_type=jnp.float32)
     return S.reshape(n_cams, C, n_cams, C)
+
+
+def check_flat_scatter_size(n_elems: int) -> None:
+    """Refuse, at trace time, a flat int32-indexed scatter target of
+    ``n_elems`` elements that int32 cannot address. The dense-Z scatters
+    use ``mode="promise_in_bounds"``, under which an out-of-range index is
+    undefined behaviour on the GPU instead of a dropped update."""
+    if n_elems >= 2 ** 31:
+        raise ValueError(
+            f"flat scatter of {n_elems} elements exceeds int32 indexing")
 
 
 def _pad_obs(x):
@@ -294,11 +304,11 @@ _DENSE_W_MAX_ELEMS = 64 * 1024 * 1024
 
 def _explicit_s_corr_dense(WHinv, AtB, obs_cam, obs_pt, active,
                            n_cams: int, n_points: int):
-    """W Hpp^-1 W^T as ONE MXU contraction.
+    """W Hpp^-1 W^T as ONE contraction.
 
     Scatter-adds the per-observation blocks into dense per-point
     [P, K, C, 3] tables and contracts over (point, 3) in a single matmul
-    — O(P*K^2*C^2*3) MXU flops instead of the d_max-deep fori_loop of
+    — O(P*K^2*C^2*3) matmul flops instead of the d_max-deep fori_loop of
     [P, d_max, C, C] segment-sums (which moves d_max/avg_depth times more
     HBM traffic than useful work when most points have few observations,
     ~50x for the 32-keyframe VO window).
@@ -325,7 +335,7 @@ def solve_schur(blocks: SchurBlocks, lam, cam_fixed, *,
 
     ``point_sorted``: blocks' observation rows are sorted by point id, so
     every point-keyed reduction (including the one inside each CG
-    iteration) runs as a compensated prefix scan instead of a TPU
+    iteration) runs as a compensated prefix scan instead of a
     scatter-add — see :func:`sorted_segment_sum`.
     """
     K, C = blocks.Hcc.shape[0], blocks.Hcc.shape[-1]
@@ -353,8 +363,7 @@ def solve_schur(blocks: SchurBlocks, lam, cam_fixed, *,
 
     # one-hot camera-membership matrix: camera-keyed reductions and
     # broadcasts (rhs_c here, plus every CG iteration's operator) run as
-    # MXU matmuls against E instead of segment_sum/gather — measured 6x
-    # faster per op at BAL scale (480k obs: 4 ms vs 27 ms). E rows are
+    # matmuls against E instead of segment_sum/gather. E rows are
     # exact 0/1 so the contraction is exact at HIGHEST precision. Above
     # ~1 GB of one-hot (huge K*O) fall back to segment_sum/gather.
     O = blocks.obs_cam.shape[0]
@@ -391,11 +400,14 @@ def solve_schur(blocks: SchurBlocks, lam, cam_fixed, *,
         keep_v = jnp.concatenate([keep_v, jnp.ones((G,), keep.dtype)])
 
     if method in ("explicit", "zexplicit"):
-        if method == "zexplicit":
+        # dense Z and dense W hold the same P*K*C*3 elements: past the
+        # ceiling both fall back to the pair-table loop
+        fits_dense = P * K * C * 3 <= _DENSE_W_MAX_ELEMS
+        if method == "zexplicit" and fits_dense:
             S_corr = _explicit_s_corr_sqrt(Hpp_inv, blocks.AtB,
                                            blocks.obs_cam, blocks.obs_pt,
                                            K, P)
-        elif P * K * C * 3 <= _DENSE_W_MAX_ELEMS:
+        elif fits_dense:
             S_corr = _explicit_s_corr_dense(WHinv, blocks.AtB,
                                             blocks.obs_cam, blocks.obs_pt,
                                             blocks.active, K, P)

@@ -86,9 +86,8 @@ def _solve_once(p: BAProblem, lam, huber_delta: float, jacobi: bool,
 def _pick_solver(problem: BAProblem, solver: str):
     if solver == "auto":
         # zexplicit = the same exact dense-S Cholesky, with the correction
-        # built as Z^T Z (one scatter + one MXU matmul) — measured 13.6 vs
-        # 17.7 ms/LM iter against the dense-W assembly at window shapes
-        # (32 kf x 16k pts x 17k obs, v5e; tools/profile_window_ba.py)
+        # built as Z^T Z (one scatter + one matmul); re-deciding this on
+        # the GPU is open (tools/profile_window_ba.py times the methods)
         return "zexplicit" if problem.n_cams <= _EXPLICIT_MAX_CAMS else "pcg"
     return solver
 
@@ -105,7 +104,7 @@ def bundle_adjust(problem: BAProblem, max_iters: int = 20,
     LM with linearization reuse: the accept-cost evaluation at the trial
     point IS the next iteration's linearization when the step is accepted,
     so each iteration pays exactly one linearize (the previous formulation
-    paid two — ~2 ms each at window shapes on a v5e). ``cg_tol``/``q_eta``
+    paid two). ``cg_tol``/``q_eta``
     forward to the PCG solve (q_eta>0 = Ceres' inexact-Newton forcing)."""
     method = _pick_solver(problem, solver)
     if d_max is None:

@@ -30,7 +30,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from dr3_tpu.ba.schur_core import assemble_blocks, solve_schur
+from dr3_tpu.ba.schur_core import (assemble_blocks, check_flat_scatter_size,
+                                   solve_schur)
 from dr3_tpu.ba.schur_lm import _EXPLICIT_MAX_CAMS
 from dr3_tpu.geometry.lie import SE3, hat, quat_rotate, quat_to_matrix, \
     quat_normalize
@@ -230,24 +231,19 @@ def linearize(p: SnavelyProblem, huber_delta: float = 2.0) -> SnavelyResiduals:
 
 
 def _assemble_direct(p: SnavelyProblem, E: jnp.ndarray, huber_delta: float):
-    """Fused linearize + normal-equation assembly, SCALARIZED for TPU.
+    """Fused linearize + normal-equation assembly, scalarized.
 
-    The generic path (:func:`linearize` + schur_core.assemble_blocks) costs
-    ~630 ms per LM iteration at BAL scale on a v5e — measured round 5 —
-    for two layout reasons:
-
-    * its chained batched matmuls over tiny per-observation matrices
-      (``[O,2,2] @ [O,2,3]`` etc.) lower to MXU ops whose operands pad the
-      trailing (2..9, 3..9) dims to full (8, 128) tiles — each ``[O,2,9]``
-      intermediate occupies ~2 GB of HBM instead of 34 MB;
-    * the jit boundary between linearize and assembly materializes three
-      such rank-3 arrays.
+    The generic path (:func:`linearize` + schur_core.assemble_blocks)
+    chains batched matmuls over tiny per-observation matrices
+    (``[O,2,2] @ [O,2,3]`` etc.) and materializes several rank-3
+    ``[O, 2, 9]`` intermediates across the jit boundary between
+    linearize and assembly.
 
     Here every quantity is a plain ``[O]`` vector and the tiny contractions
     (quaternion rotation, du_dq @ dq_dp, the hat-product, du_dp @ R) are
-    expanded into elementwise multiply-adds the VPU streams at bandwidth;
+    expanded into elementwise multiply-adds that stream at bandwidth;
     the only materialized per-observation tensors are rank-2 ``[O, F]``
-    stacks feeding the camera-one-hot MXU reduction (exact 0/1 matmul) and
+    stacks feeding the camera-one-hot reduction (exact 0/1 matmul) and
     one ``[O, 12]`` point-keyed segment scatter. Same math as
     linearize+assemble_blocks to f32 rounding (pinned by
     tests/test_snavely.py::test_assemble_direct_matches_generic).
@@ -258,7 +254,7 @@ def _assemble_direct(p: SnavelyProblem, E: jnp.ndarray, huber_delta: float):
     oc = jnp.clip(p.obs_cam, 0, K - 1)
     op = jnp.clip(p.obs_pt, 0, P - 1)
 
-    # per-observation camera parameters through ONE [O,K]@[K,10] MXU matmul
+    # per-observation camera parameters through ONE [O,K]@[K,10] matmul
     # (exact: E rows are one-hot 0/1), points through one [P,3] gather
     params = jnp.concatenate([p.cam_wxyz, p.cam_t, p.cam_fkk], axis=1)
     po = jax.lax.dot_general(E, params, (((1,), (0,)), ((), ())),
@@ -371,7 +367,7 @@ def _assemble_direct(p: SnavelyProblem, E: jnp.ndarray, huber_delta: float):
 
     # ---- normal-equation blocks ----
     # Two rank-2 product stacks: [O, 90] camera-keyed (AtA | Atr) reduced
-    # through ONE exact one-hot MXU matmul, and [O, 12] point-keyed
+    # through ONE exact one-hot matmul, and [O, 12] point-keyed
     # (BtB | Btr) through one segment scatter. The coupling W = Jc^T Jp is
     # NEVER materialized: the solves consume the factored J columns
     # directly (every AtB product is rank-2 through the residual space),
@@ -501,10 +497,10 @@ def _solve_explicit_direct(blocks: "DirectBlocks", lam, cam_fixed, E):
 
     where Z's (3p+r, 9k+c) block row collects the unique observation of
     point p by camera k (a camera observes a point at most once, so the
-    scatter that builds dense Z has no collisions). Z^T Z is ONE MXU
-    matmul (~420 GFLOP at 120 cams x 60k points: ~5 ms) and the reduced
-    [9K, 9K] system solves by Cholesky — compare ~20 PCG iterations each
-    paying a point-keyed scatter+gather (~185 ms). Dense Z costs
+    scatter that builds dense Z has no collisions). Z^T Z is ONE matmul
+    (~420 GFLOP at 120 cams x 60k points) and the reduced [9K, 9K] system
+    solves by Cholesky — instead of ~20 PCG iterations each paying a
+    point-keyed scatter+gather. Dense Z costs
     12*P*K*9 bytes; callers fall back to PCG above ``_Z_MAX_BYTES``.
     Same reduced system as schur_core.solve_schur(method='explicit')
     (pinned by tests/test_snavely.py::test_solve_explicit_direct_matches).
@@ -542,6 +538,7 @@ def _solve_explicit_direct(blocks: "DirectBlocks", lam, cam_fixed, E):
                       for r in range(3) for c in range(9)],
                      axis=-1)                           # [O, 27]
 
+    check_flat_scatter_size(3 * P * 9 * K)
     rows = 3 * op[:, None] + jnp.arange(3, dtype=op.dtype)[None, :]
     cols = 9 * oc[:, None] + jnp.arange(9, dtype=oc.dtype)[None, :]
     flat_idx = (rows[:, :, None] * (9 * K) + cols[:, None, :]).reshape(O, 27)
@@ -622,7 +619,7 @@ def _solve_pcg_direct(blocks: "DirectBlocks", lam, cam_fixed, E,
     preconditioner, same residual + Ceres Q-stagnation termination;
     equivalence pinned by tests/test_snavely.py). Every per-observation
     quantity stays [O, F<=27] rank-2; camera reductions/broadcasts are
-    exact one-hot MXU matmuls against ``E``; the only per-CG-iteration
+    exact one-hot matmuls against ``E``; the only per-CG-iteration
     point ops are one [O, 3] segment scatter and one [P, 3] gather."""
     from dr3_tpu.geometry.linalg import chol_solve_small
 
@@ -779,7 +776,7 @@ def bundle_adjust_snavely(problem: SnavelyProblem, max_iters: int = 30,
     LM loop absorbs step inexactness). Callers that need near-exact steps —
     fixed LM budgets, tight-convergence tests — pass cg_tol=1e-5, q_eta=0.
     """
-    # camera one-hot for MXU-shaped parameter broadcasts + normal-equation
+    # camera one-hot for matmul-shaped parameter broadcasts + normal-equation
     # reductions, built ONCE and reused every LM iteration (obs_cam is
     # constant across the loop). Above ~1 GB of one-hot fall back to the
     # generic gather/scatter path.
@@ -789,7 +786,7 @@ def bundle_adjust_snavely(problem: SnavelyProblem, max_iters: int = 30,
     method = solver
     if solver == "auto":
         # the square-root dense-Schur fast path is both exact AND the
-        # fastest at BAL scale (no CG loop; one MXU matmul) — prefer it
+        # cheapest at BAL scale (no CG loop; one matmul) — prefer it
         # whenever dense Z fits, fall back to matrix-free PCG beyond
         if use_direct and z_fits:
             method = "zexplicit"
@@ -818,9 +815,8 @@ def bundle_adjust_snavely(problem: SnavelyProblem, max_iters: int = 30,
         # exit cuts ~90 CG iterations per LM step at identical final cost
         if fast:
             # fused scalarized linearize+assembly+solve — the BAL-scale
-            # fast path (~770 ms -> well under 200 ms per LM iteration on
-            # a v5e, round 5; see _assemble_direct / _solve_explicit_direct
-            # / _solve_pcg_direct)
+            # fast path (see _assemble_direct / _solve_explicit_direct /
+            # _solve_pcg_direct)
             blocks, _c = _assemble_direct(p, E, huber_delta)
             if method == "zexplicit":
                 dc, dpt = _solve_explicit_direct(blocks, lam, p.cam_fixed, E)

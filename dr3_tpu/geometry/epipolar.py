@@ -1,6 +1,6 @@
 """Two-view epipolar geometry: F/E estimation, triangulation, cheirality.
 
-TPU-native re-design of the reference's TwoView toolkit (reference
+Batched re-design of the reference's TwoView toolkit (reference
 include/two.hpp:14-93, src/two.cpp:8-298) and the math half of the ORB-SLAM
 style initializer (src/initialization.cpp:135-541):
 
@@ -12,7 +12,7 @@ style initializer (src/initialization.cpp:135-541):
   construction with det fix (src/two.cpp:134-156, initialization.cpp:522-541);
 * batched DLT triangulation — the reference does one 4x4 SVD per point per
   hypothesis (src/two.cpp:238-254); here all N x 4 hypotheses solve in one
-  batched eigh of the 4x4 Gram matrices (MXU/VPU friendly, no host loop);
+  batched eigh of the 4x4 Gram matrices (no host loop);
 * cheirality disambiguation with parallax + reprojection gating — the union
   of the simple z>0 count (src/two.cpp:256-298) and ORB-SLAM CheckRT
   (initialization.cpp:412-520).

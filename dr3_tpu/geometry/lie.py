@@ -26,11 +26,17 @@ _EPS = 1e-8
 
 
 def _register(cls):
+    def unflatten(aux, children):
+        # bypass __init__: JAX rebuilds pytrees from non-array leaves too
+        # (abstract values when lowering a program), which jnp.asarray
+        # would reject
+        obj = object.__new__(cls)
+        for name, v in zip(cls._fields, children):
+            setattr(obj, name, v)
+        return obj
+
     jax.tree_util.register_pytree_node(
-        cls,
-        lambda v: (v.tree_flatten_arrays(), None),
-        lambda aux, children: cls(*children),
-    )
+        cls, lambda v: (v.tree_flatten_arrays(), None), unflatten)
     return cls
 
 
@@ -136,6 +142,8 @@ def hat(v: jnp.ndarray) -> jnp.ndarray:
 class SO3:
     """Unit-quaternion rotation group, batched over leading axes."""
 
+    _fields = ("wxyz",)
+
     def __init__(self, wxyz: jnp.ndarray):
         self.wxyz = jnp.asarray(wxyz)
 
@@ -222,6 +230,8 @@ class SO3:
 @_register
 class SE3:
     """Rigid transform T = (R, t): x -> R x + t, batched over leading axes."""
+
+    _fields = ("wxyz", "t")
 
     def __init__(self, wxyz: jnp.ndarray, t: jnp.ndarray):
         self.wxyz = jnp.asarray(wxyz)

@@ -1,8 +1,8 @@
-"""Small-matrix linear algebra helpers tuned for batching on TPU.
+"""Small-matrix linear algebra helpers tuned for batching.
 
 The reference leans on OpenCV SVD for every DLT solve (reference
 src/two.cpp:88,114,143,252, src/utils.cpp:82, src/initialization.cpp:160-168).
-On TPU we want *batched* solves with static shapes; for the "smallest right
+Here we want *batched* solves with static shapes; for the "smallest right
 singular vector of A" pattern (null space of a DLT system) we use the
 symmetric eigendecomposition of the small Gram matrix A^T A — A is 2Nx9 /
 2Nx9 / 4x4, so the Gram matrix is at most 9x9 and `eigh` batches cleanly
@@ -19,10 +19,10 @@ def smallest_eigvec_gram(A: jnp.ndarray, iters: int = 10) -> jnp.ndarray:
 
     Computed by fixed-count **inverse power iteration** on the Gram matrix
     A^T A (damped to PD, Cholesky factored once, ``iters`` unrolled
-    triangular solves). Deliberately NOT ``jnp.linalg.eigh``: on TPU the
-    batched eigh lowers to a data-dependent iterative loop — unbounded
+    triangular solves). Deliberately NOT ``jnp.linalg.eigh``: a batched
+    eigh may lower to a data-dependent iterative loop — unbounded
     latency on pathological batches — while this is a static program of
-    n^3/3-flop solves on the VPU. DLT null spaces have a large eigen-gap,
+    n^3/3-flop elementwise solves. DLT null spaces have a large eigen-gap,
     so ~10 iterations reach f32 accuracy; in a (near-)degenerate pencil any
     vector of the small-eigenvalue subspace is geometrically acceptable.
     """
@@ -57,10 +57,9 @@ def chol_solve_small(A: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
 
     A [..., n, n], b [..., n] with n static and small (<= ~8). XLA lowers
     ``jnp.linalg.solve``/``cholesky`` on tiny matrices to sequential LU /
-    blocked loops whose launch latency dominates the actual math on TPU
-    (measured ~0.1 ms per 6x6 solve inside the pose-GN loop). Unrolling the
-    factorization into n^3/3 elementwise ops keeps everything on the VPU,
-    batched over the leading axes.
+    blocked loops whose launch latency dominates the actual math.
+    Unrolling the factorization into n^3/3 elementwise ops keeps it one
+    fused program, batched over the leading axes.
     """
     n = A.shape[-1]
     L = [[None] * n for _ in range(n)]

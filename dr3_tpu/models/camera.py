@@ -1,6 +1,6 @@
 """Camera models.
 
-TPU-native re-design of the reference's AbstractCamera/Pinhole (reference
+Batched re-design of the reference's AbstractCamera/Pinhole (reference
 include/camera.hpp:17-91, src/camera.cpp:8-73): a frozen pytree with fully
 *batched* projection ops instead of per-point virtuals.
 

@@ -4,7 +4,7 @@
 // Runtime role: the reference's pipelines read frames synchronously on the
 // processing thread (reference tests/slam/test_slam.cc:15-44 loads every
 // KITTI frame with cv::imread inline; src/utils.cpp:91-109 load_image).
-// On a TPU host the decode must overlap device compute, so this loader runs
+// The decode must overlap device compute, so this loader runs
 // a worker pool that decodes ahead into a bounded ring of slots and hands
 // frames to Python strictly in order, as float32 grayscale in [0, 1].
 //

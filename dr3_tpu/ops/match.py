@@ -2,11 +2,10 @@
 
 Fills the reference's ORB + brute-force Hamming matching role
 (reference src/stitch.cpp:11-27, src/slam.cpp:103-113, src/two.cpp:27-36)
-with a TPU-native formulation: descriptors are mean/variance-normalized
+with a dense formulation: descriptors are mean/variance-normalized
 intensity patches (ZNCC), so brute-force matching over all pairs is a single
-[N, D] x [D, M] matmul on the MXU — the exact dense-compute shape TPUs are
-built for — followed by mutual-best + Lowe ratio gating. Binary descriptors
-+ popcount give no advantage on a systolic array; correlation does.
+[N, D] x [D, M] matmul — the dense-compute shape accelerators are built
+for — followed by mutual-best + Lowe ratio gating.
 
 Fixed capacities + masks everywhere: invalid rows score -inf and can never
 match.
@@ -82,7 +81,7 @@ def match_descriptors(d1: jnp.ndarray, d2: jnp.ndarray,
     Mirrors BFMatcher crossCheck semantics plus a Lowe-style ratio test on
     correlation (second-best must be < ratio * best in correlation space).
     """
-    sim = d1 @ d2.T  # [N, M] — MXU
+    sim = d1 @ d2.T  # [N, M]
     neg = jnp.finfo(sim.dtype).min
     sim = jnp.where(valid1[:, None] & valid2[None, :], sim, neg)
 

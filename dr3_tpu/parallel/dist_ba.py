@@ -152,7 +152,7 @@ def _dist_ba_shardfn(cam_wxyz, cam_t, intr, dist, cam_fixed, pts_l, oc, op,
         # memory guard stays correct if the parameterization grows
         if P_loc * K * blocks.AtB.shape[-2] * 3 <= _DENSE_W_MAX_ELEMS:
             # per-shard square-root correction Z^T Z — one collision-free
-            # scatter + one MXU matmul per shard, psum'd like any other
+            # scatter + one matmul per shard, psum'd like any other
             # partial (schur_core._explicit_s_corr_sqrt; measured faster
             # than the dense-W two-scatter contraction at window shapes)
             S_corr_part = _explicit_s_corr_sqrt(

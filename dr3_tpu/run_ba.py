@@ -1,4 +1,4 @@
-"""Offline bundle adjustment over BAL problem files (the TPU-native
+"""Offline bundle adjustment over BAL problem files (the JAX
 counterpart of the reference's Ceres BAL adjuster, tests/ceres/ba.cc:21-167).
 
     python -m dr3_tpu.run_ba problem.bal --iters 30 --out refined.bal \

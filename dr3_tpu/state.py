@@ -107,7 +107,7 @@ def compact_map(map_state: MapState, keep: jnp.ndarray):
     """Compress live map points to the front of the capacity array.
 
     The reference's Map only ever grows (its global BA got "ridiculously
-    slow", reference README.md:44-45); with static TPU shapes, growth is a
+    slow", reference README.md:44-45); with static shapes, growth is a
     hard capacity instead, so long sequences need reclamation. ``keep``
     marks the point ids still referenced anywhere (live tracks, keyframe
     observations, loop database); everything else is dropped and survivors

@@ -5,7 +5,7 @@ src/timer.cpp:9-58): string-keyed registry of wall-clock timers with
 cumulative and average accounting, plus ``get_tat()`` (sum of averages) and a
 per-frame report in the style of src/slam.cpp:49-84.
 
-TPU caveat: JAX dispatch is async, so ``toc`` optionally blocks on a result
+Device caveat: JAX dispatch is async, so ``toc`` optionally blocks on a result
 (``block=result``) so wall-clock covers device execution, not just dispatch.
 """
 

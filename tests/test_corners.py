@@ -129,8 +129,7 @@ def test_spawn_placement_matches_loop_oracle(rng):
     obvious sequential rule: the r-th detected corner (in raster order of
     valid detections) fills the r-th free track slot (in index order).
     Pinned against a python-loop oracle so future rewrites cannot silently
-    change placement semantics (the formulation was rewritten scatter-free
-    to fix a TPU worker fault)."""
+    change placement semantics (the formulation is scatter-free)."""
     import jax.numpy as jnp
 
     from dr3_tpu.pipelines.vo import _spawn_tracks

@@ -1,6 +1,6 @@
 """True multi-process distributed BA: 2 OS processes, jax.distributed over
 local TCP, a 2-level [hosts, points] mesh spanning both — the CPU stand-in
-for a multi-host TPU pod (SURVEY §7 config 5). Verifies the N-process
+for a multi-host cluster (SURVEY §7 config 5). Verifies the N-process
 solve equals the single-process solve."""
 
 import json

@@ -95,9 +95,8 @@ def test_scan_batch_width_invariance(rng):
 def test_scan_speculation_depth_invariance(rng):
     """The speculative dispatch chain (depth > 1) must be semantics-free:
     same trajectory/keyframes/closures as depth 1, with the discarded
-    chain tails counted. Default flipped to depth 1 in round 5 (a relay
-    fetch drains the dispatch queue, so chains buy nothing THERE), so
-    this pins the >1 path the defaults no longer exercise — including
+    chain tails counted. The default is depth 1, so this pins the >1
+    path the defaults do not exercise — including
     chain discard on a loop-closure event."""
     frames = _out_and_back_frames(rng)
     runs = {}

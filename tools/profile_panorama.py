@@ -1,6 +1,6 @@
 """Chip timing of the panorama pipeline stages (spherical pre-warp,
-pairwise alignment, paste/blend) plus the per-run total — run twice to see
-relay variance. Prints the Monitor stage table per repetition."""
+pairwise alignment, paste/blend) plus the per-run total, three times to
+see the spread. Prints the Monitor stage table per repetition."""
 
 from __future__ import annotations
 
@@ -17,11 +17,6 @@ def main():
     from dr3_tpu.utils.cache import enable_persistent_cache
 
     enable_persistent_cache()
-    import jax
-
-    if os.environ.get("BENCH_PLATFORM"):
-        jax.config.update("jax_platforms", os.environ["BENCH_PLATFORM"])
-
     from dr3_tpu.io.image import load_image_dir
     from dr3_tpu.pipelines.panorama import Panorama, PanType
 

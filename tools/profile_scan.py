@@ -60,9 +60,9 @@ def main():
         pyr_p, px = carry
         img = frames[idx % 10]
         pyr_c = tuple(pyramid.build_pyramid(img, cfg.klt_levels))
-        res = lk.track_pyramid_auto(list(pyr_p), list(pyr_c), px, track_valid,
-                                    half_window=cfg.klt_window // 2,
-                                    iters=cfg.klt_iters, eps=cfg.klt_eps)
+        res = lk.track_pyramid(list(pyr_p), list(pyr_c), px, track_valid,
+                               half_window=cfg.klt_window // 2,
+                               iters=cfg.klt_iters, eps=cfg.klt_eps)
         px2 = jnp.clip(res.pos, jnp.asarray([25.0, 25.0]),
                        jnp.asarray([1215.0, 351.0]))
         return (pyr_c, px2), res.err.sum()

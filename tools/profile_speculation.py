@@ -21,11 +21,7 @@ def main():
     from dr3_tpu.utils.cache import enable_persistent_cache
 
     enable_persistent_cache()
-    import jax
     import jax.numpy as jnp
-
-    if os.environ.get("BENCH_PLATFORM"):
-        jax.config.update("jax_platforms", os.environ["BENCH_PLATFORM"])
 
     x = jnp.arange(8.0)
     try:
